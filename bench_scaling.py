@@ -2,15 +2,15 @@
 
 Shards a fixed-size per-device workload (weak scaling) of pair alignments
 over 1, 2, ..., all visible devices with the production shard_map path and
-reports pairs/s and scaling efficiency vs the single-device rate.  On a real
-slice this exercises ICI collectives; during development it runs on a
-virtual CPU mesh:
+reports pairs/s and scaling efficiency vs the single-device rate.  On
+several GPUs this exercises the interconnect's collectives; during
+development it runs on a virtual CPU mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python bench_scaling.py --pairs_per_device 64 --len 256
 
 Prints one JSON line per device count plus a summary line with the
-efficiency at full width (the BASELINE.md >=85% target tracks the summary).
+efficiency at full width (vs_baseline is relative to an 85% target).
 """
 
 import argparse
@@ -25,9 +25,10 @@ def _spawn_processes(args) -> int:
     """Re-exec this benchmark as N distributed processes (CPU backend,
     4 virtual devices each) and relay process 0's report lines.
 
-    Measures the multi-process axis of the BASELINE.md scaling target:
-    per-host rate (independent local meshes) vs the lockstep global-mesh
-    rate across all processes (Gloo here; ICI/DCN on a pod).
+    Measures the multi-process scaling axis: per-host rate (independent
+    local meshes) vs the lockstep global-mesh rate across all processes
+    (Gloo between CPU processes).  The workers are pinned to the CPU
+    backend, so they never contend for a GPU.
     """
     import socket
 
@@ -89,19 +90,13 @@ def main() -> int:
         return _spawn_processes(args)
 
     import jax
-
-    # Some TPU plugins ignore the JAX_PLATFORMS env var; apply it as the
-    # config knob so the documented CPU-mesh invocation works everywhere.
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
     import numpy as np
 
-    from globalign_tpu.parallel.mesh import make_pair_mesh, sharded_fill_costs
-    from globalign_tpu.ops.transforms import scoring_mat_to_costing_mat
-    from globalign_tpu.utils.matrices import create_scoring_mat
-    from globalign_tpu.utils.platform import enable_compilation_cache
-    from globalign_tpu.utils.tokenize import Alphabet
+    from globalign_jax.parallel.mesh import make_pair_mesh, sharded_fill_costs
+    from globalign_jax.ops.transforms import scoring_mat_to_costing_mat
+    from globalign_jax.utils.matrices import create_scoring_mat
+    from globalign_jax.utils.platform import enable_compilation_cache
+    from globalign_jax.utils.tokenize import Alphabet
 
     enable_compilation_cache()
     alphabet = Alphabet.from_letters(("A", "C", "G", "T", "-"))
@@ -142,7 +137,7 @@ def main() -> int:
         # Distributed worker: per-process local-mesh rate, then the
         # lockstep global-mesh rate (every process runs the same program;
         # the batch axis spans all of them, all_gather merges results).
-        from globalign_tpu.parallel.multihost import initialize
+        from globalign_jax.parallel.multihost import initialize
 
         pid, P = initialize(
             f"localhost:{os.environ['GLOBALIGN_MH_PORT']}",

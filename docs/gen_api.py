@@ -19,31 +19,29 @@ import sys
 from pathlib import Path
 
 MODULES = [
-    "globalign_tpu",
-    "globalign_tpu.api",
-    "globalign_tpu.config",
-    "globalign_tpu.batch",
-    "globalign_tpu.runner",
-    "globalign_tpu.results",
-    "globalign_tpu.cli",
-    "globalign_tpu.batch_cli",
-    "globalign_tpu.models.gotoh",
-    "globalign_tpu.ops.fill_scan",
-    "globalign_tpu.ops.fill_rows",
-    "globalign_tpu.ops.fill_pallas",
-    "globalign_tpu.ops.fill_lanes",
-    "globalign_tpu.ops.linear_tb",
-    "globalign_tpu.ops.traceback",
-    "globalign_tpu.ops.transforms",
-    "globalign_tpu.parallel.mesh",
-    "globalign_tpu.parallel.seqpar",
-    "globalign_tpu.parallel.multihost",
-    "globalign_tpu.utils.fasta",
-    "globalign_tpu.utils.matrices",
-    "globalign_tpu.utils.random_seqs",
-    "globalign_tpu.utils.tokenize",
-    "globalign_tpu.utils.platform",
-    "globalign_tpu.utils.native",
+    "globalign_jax",
+    "globalign_jax.api",
+    "globalign_jax.config",
+    "globalign_jax.batch",
+    "globalign_jax.runner",
+    "globalign_jax.results",
+    "globalign_jax.cli",
+    "globalign_jax.batch_cli",
+    "globalign_jax.models.gotoh",
+    "globalign_jax.ops.fill_scan",
+    "globalign_jax.ops.fill_rows",
+    "globalign_jax.ops.linear_tb",
+    "globalign_jax.ops.traceback",
+    "globalign_jax.ops.transforms",
+    "globalign_jax.parallel.mesh",
+    "globalign_jax.parallel.seqpar",
+    "globalign_jax.parallel.multihost",
+    "globalign_jax.utils.fasta",
+    "globalign_jax.utils.matrices",
+    "globalign_jax.utils.random_seqs",
+    "globalign_jax.utils.tokenize",
+    "globalign_jax.utils.platform",
+    "globalign_jax.utils.native",
     "globalign",
 ]
 

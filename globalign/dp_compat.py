@@ -3,13 +3,13 @@
 The reference exposes its interpreted fill's internals as public module
 symbols (reference globaligner.py:317-821), and its own test suite calls
 ``dp_array_forward`` on a hand-seeded array
-(reference tests/globaligner_test.py:4-37).  The TPU engine has no
+(reference tests/globaligner_test.py:4-37).  The engine has no
 list-of-lists DP array — its fills are dense int32 lanes — so these
 adapters re-implement the same *semantics* on the reference's data shape
 (nested ``dict`` costing matrices, ``(M, Ix, Iy)`` tuples) for drop-in
 consumers.  They are interpreted compatibility views, not a compute
 path: batch or long-sequence work belongs on
-:func:`globalign_tpu.align_pairs` / :func:`globalign_tpu.find_global_alignment`.
+:func:`globalign_jax.align_pairs` / :func:`globalign_jax.find_global_alignment`.
 
 Deterministic divergences from the reference, by design:
 

@@ -4,8 +4,8 @@ The DP-internal symbols (``make_dp_array`` .. ``take_*``) are
 list-of-lists compatibility adapters — see :mod:`globalign.dp_compat`
 for their contract and documented deterministic divergences."""
 
-from globalign_tpu.api import find_global_alignment  # noqa: F401
-from globalign_tpu.cli import main  # noqa: F401
+from globalign_jax.api import find_global_alignment  # noqa: F401
+from globalign_jax.cli import main  # noqa: F401
 
 from .dp_compat import (  # noqa: F401
     dp_array_backward,

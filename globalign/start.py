@@ -2,38 +2,38 @@
 
 Every function keeps the reference's signature and dict-of-dicts matrix
 format (reference start.py); matrix-valued operations convert through
-:class:`globalign_tpu.SubstitutionMatrix` and back.
+:class:`globalign_jax.SubstitutionMatrix` and back.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
-from globalign_tpu.config import (  # noqa: F401
+from globalign_jax.config import (  # noqa: F401
     SimpleCostingSettings,
     SimpleScoringSettings,
 )
-from globalign_tpu.config import check_seq_lengths  # noqa: F401
-from globalign_tpu.config import (
+from globalign_jax.config import check_seq_lengths  # noqa: F401
+from globalign_jax.config import (
     validate_and_transform_args as _validate_and_transform_args,
 )
-from globalign_tpu.ops import transforms as _transforms
-from globalign_tpu.utils import matrices as _matrices
-from globalign_tpu.utils.fasta import (  # noqa: F401
+from globalign_jax.ops import transforms as _transforms
+from globalign_jax.utils import matrices as _matrices
+from globalign_jax.utils.fasta import (  # noqa: F401
     read_first_2_seqs_from_fasta,
     read_seq_from_fasta,
 )
-from globalign_tpu.utils.matrices import (  # noqa: F401
+from globalign_jax.utils.matrices import (  # noqa: F401
     check_big_main_diag,
     check_symmetric,
     get_max_val,
     validate_scoring_mat_keys,
 )
-from globalign_tpu.utils.random_seqs import (  # noqa: F401
+from globalign_jax.utils.random_seqs import (  # noqa: F401
     draw_random_seq,
     draw_two_random_seqs,
 )
-from globalign_tpu.utils.tokenize import Alphabet as _Alphabet
+from globalign_jax.utils.tokenize import Alphabet as _Alphabet
 
 
 def get_common_alphabet(seq_1, seq_2):

@@ -1,6 +1,6 @@
-// globalign_tpu native host runtime.
+// globalign_jax native host runtime.
 //
-// The TPU owns the O(m*n) fill (jax/pallas); this library owns the host-side
+// The device owns the O(m*n) fill (JAX/XLA); this library owns the host-side
 // serial work around it, replacing the interpreted-Python equivalents:
 //
 //   * FASTA streaming parser (reference: src/globalign/start.py:614-688) —
@@ -12,7 +12,7 @@
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in this image);
 // every entry point has a pure-Python fallback with identical semantics
-// (globalign_tpu/utils/fasta.py, ops/traceback.py), asserted equal by
+// (globalign_jax/utils/fasta.py, ops/traceback.py), asserted equal by
 // tests/test_native.py.
 
 #include <cctype>

@@ -2,7 +2,8 @@
 
 Each OS process gets 4 virtual CPU devices; ``jax.distributed.initialize``
 joins them into one 8-device runtime with real (Gloo) collectives between
-the processes — the same code path a multi-host TPU pod runs over ICI/DCN.
+the processes — the same code path a multi-host GPU cluster runs over its
+interconnect.
 
 Usage: python multihost_harness.py <process_id> <port> <outdir>
 """
@@ -39,15 +40,15 @@ def main() -> int:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from globalign_tpu.parallel.multihost import initialize
+    from globalign_jax.parallel.multihost import initialize
 
     ppid, pcount = initialize(f"localhost:{port}", 2, pid)
     assert (ppid, pcount) == (pid, 2), (ppid, pcount)
     assert len(jax.devices()) == 8, jax.devices()
     assert len(jax.local_devices()) == 4
 
-    from globalign_tpu.parallel.mesh import make_pair_mesh, sharded_fill_costs
-    from globalign_tpu.runner import BatchRunner
+    from globalign_jax.parallel.mesh import make_pair_mesh, sharded_fill_costs
+    from globalign_jax.runner import BatchRunner
 
     # Phase 1 — host-sharded throughput mode: each process aligns its
     # round-robin share of the chunks on a mesh of its LOCAL devices.
@@ -71,9 +72,9 @@ def main() -> int:
     # on a pod: ICI/DCN) interconnect.
     import numpy as np
 
-    from globalign_tpu.ops.transforms import scoring_mat_to_costing_mat
-    from globalign_tpu.utils.matrices import create_scoring_mat
-    from globalign_tpu.utils.tokenize import Alphabet, encode_padded
+    from globalign_jax.ops.transforms import scoring_mat_to_costing_mat
+    from globalign_jax.utils.matrices import create_scoring_mat
+    from globalign_jax.utils.tokenize import Alphabet, encode_padded
 
     alpha = Alphabet.from_letters(("A", "C", "G", "T", "-"))
     costing = scoring_mat_to_costing_mat(
@@ -106,14 +107,14 @@ def main() -> int:
     # single-device path.
     import jax.numpy as jnp
 
-    from globalign_tpu.ops.linear_tb import align_blocked
+    from globalign_jax.ops.linear_tb import align_blocked
 
     rng = np.random.default_rng(77)
     s1 = "".join(rng.choice(list("ACGT"), 83))
     s2 = "".join(rng.choice(list("ACGT"), 61))
     ta1 = np.asarray(encode_padded(alpha, s1, len(s1)))
     tb1 = np.asarray(encode_padded(alpha, s2, len(s2)))
-    kw = dict(block_rows=16, use_pallas=False)
+    kw = dict(block_rows=16)
     tb_local = align_blocked(
         ta1, jnp.asarray(tb1), costing.values, alpha.gap_id, 4, s1, s2, **kw
     )

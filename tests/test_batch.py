@@ -2,10 +2,10 @@
 
 import pytest
 
-from globalign_tpu import align_pairs, find_global_alignment
-from globalign_tpu.batch import bucket_length
-from globalign_tpu.ops.traceback import alignment_cost
-from globalign_tpu.utils.matrices import SubstitutionMatrix
+from globalign_jax import align_pairs, find_global_alignment
+from globalign_jax.batch import bucket_length
+from globalign_jax.ops.traceback import alignment_cost
+from globalign_jax.utils.matrices import SubstitutionMatrix
 
 PAIRS = [
     ("ACGT", "AGT"),
@@ -87,8 +87,8 @@ def test_batch_traceback_moves_budget_fallback(monkeypatch):
     blocked per-pair traceback and still produce identical alignments."""
     import numpy as np
 
-    import globalign_tpu.batch as batch_mod
-    from globalign_tpu.batch import align_pairs
+    import globalign_jax.batch as batch_mod
+    from globalign_jax.batch import align_pairs
 
     rng = np.random.default_rng(3)
     pairs = [
@@ -109,8 +109,8 @@ def test_batch_traceback_subbatch_split(monkeypatch):
     (keeping the batched path), not degraded to per-pair replay."""
     import numpy as np
 
-    import globalign_tpu.batch as batch_mod
-    from globalign_tpu.batch import align_pairs
+    import globalign_jax.batch as batch_mod
+    from globalign_jax.batch import align_pairs
 
     rng = np.random.default_rng(7)
     pairs = [
@@ -127,156 +127,22 @@ def test_batch_traceback_subbatch_split(monkeypatch):
     assert want == got
 
 
-def test_walked_traceback_flush_accounting(monkeypatch):
-    """The chunk-wide mega-walk path — fills accumulating across
-    buckets with DIFFERING shapes, ONE lanes_mega_walk executable,
-    padded-row flush accounting, native forward-order rendering — runs
-    REAL on CPU: the lane moves kernels in interpret mode (w clamped
-    to 4, CLAUDE.md LLVM-JIT note), the walk and flush are pure XLA."""
-    import functools
-
-    import globalign_tpu.batch as batch_mod
-    from globalign_tpu.ops import fill_lanes
-
-    # Three buckets with distinct (M, N) — so distinct tile geometries —
-    # interleaved in input order to stress the sel/meta accounting.
-    pairs = PAIRS + [
-        ("ACGTACGTACGTACGTACGTACGTACGTACGTACGTACGTA" * 2,
-         "ACGTTACGATCGATCGTACGATCGATCGACGTACGTACGTG" * 2),
-        ("TTTTGGGGCCCCAAAA", "TTGGCCAA"),
-    ]
-    want = batch_mod.align_pairs(pairs, with_traceback=True)
-
-    real_plan = fill_lanes.lanes_plan
-
-    def small_w_plan(*a, **k):
-        plan = real_plan(*a, **k)
-        return None if plan is None else (min(plan[0], 4), plan[1])
-
-    monkeypatch.setattr(fill_lanes, "lanes_plan", small_w_plan)
-    monkeypatch.setattr(
-        fill_lanes, "lanes_batch_moves",
-        functools.partial(fill_lanes.lanes_batch_moves, interpret=True),
-    )
-    monkeypatch.setattr(batch_mod, "_use_pallas", lambda: True)
-    monkeypatch.setattr(
-        batch_mod, "_drain_tb_fused",
-        functools.partial(batch_mod._drain_tb_fused, interpret=True),
-    )
-    # FUSED path (TB_CHUNK_JIT opt-in): every bucket's fills + the walk
-    # in one executable.
-    monkeypatch.setattr(batch_mod, "TB_CHUNK_JIT", True)
-    got = batch_mod.align_pairs(pairs, with_traceback=True)
-    assert want == got
-
-    # Eager path (_lanes_walk_fills + _mega_walk_flush, the default):
-    # per-bucket fills, chunk-wide mega walk.
-    monkeypatch.setattr(batch_mod, "TB_CHUNK_JIT", False)
-    got_eager = batch_mod.align_pairs(pairs, with_traceback=True)
-    assert want == got_eager
-
-    # Segment split: a tiny WALK_GROUP_BYTES forces one segment per
-    # bucket — multi-segment row/off bookkeeping, both paths.
-    monkeypatch.setattr(batch_mod, "WALK_GROUP_BYTES", 1)
-    got2 = batch_mod.align_pairs(pairs, with_traceback=True)
-    assert want == got2
-    monkeypatch.setattr(batch_mod, "TB_CHUNK_JIT", True)
-    got3 = batch_mod.align_pairs(pairs, with_traceback=True)
-    assert want == got3
-
-
-def test_cost_chunk_jit_matches_eager(monkeypatch):
-    """The per-chunk fused cost executable (_chunk_costs_jit: every
-    bucket's fill in ONE jit, static meta signature) must reproduce the
-    eager path — uniform scheme over several distinct buckets, REAL
-    kernels in interpret mode on CPU."""
-    import functools
-
-    import globalign_tpu.batch as batch_mod
-
-    pairs = PAIRS + [("TTTTGGGGCCCCAAAA", "TTGGCCAA")]
-    want = batch_mod.align_pairs(pairs, with_traceback=False)
-    monkeypatch.setattr(batch_mod, "_use_pallas", lambda: True)
-    monkeypatch.setattr(batch_mod, "COST_CHUNK_JIT", True)
-    monkeypatch.setattr(
-        batch_mod, "_chunk_costs_jit",
-        functools.partial(batch_mod._chunk_costs_jit, interpret=True),
-    )
-    got = batch_mod.align_pairs(pairs, with_traceback=False)
-    assert want == got
-
-
-def test_cost_chunk_jit_general_bitmask(monkeypatch):
-    """General matrices join the fused chunk executable once their
-    shape class is probed (host-resolved static plan + bitmask
-    sub_bits, mesh.py's pattern): REAL lanes_general_final3 kernels in
-    interpret mode under ONE jit, pinned against the CPU path."""
-    import functools
-
-    import numpy as np
-
-    import globalign_tpu.batch as batch_mod
-    from globalign_tpu.ops import fill_lanes
-
-    rng = np.random.default_rng(3)
-    prot = list("ARNDCQEGHILKMFPSTWYV")
-    pairs = [
-        (
-            "".join(rng.choice(prot, int(rng.integers(5, 40)))),
-            "".join(rng.choice(prot, int(rng.integers(5, 40)))),
-        )
-        for _ in range(8)
-    ]
-    want = batch_mod.align_pairs(
-        pairs, scoring_mat_name="BLOSUM62", with_traceback=False
-    )
-
-    real_plan = fill_lanes.lanes_plan
-
-    def small_w_plan(*a, **k):
-        plan = real_plan(*a, **k)
-        return None if plan is None else (min(plan[0], 4), plan[1])
-
-    monkeypatch.setattr(fill_lanes, "lanes_plan", small_w_plan)
-    monkeypatch.setattr(batch_mod, "_use_pallas", lambda: True)
-    monkeypatch.setattr(batch_mod, "COST_CHUNK_JIT", True)
-    monkeypatch.setattr(
-        batch_mod, "_chunk_costs_jit",
-        functools.partial(batch_mod._chunk_costs_jit, interpret=True),
-    )
-    # Treat every shape class as probed: the probe's purpose (latching
-    # backend rejections on FIRST eager use) is covered elsewhere; here
-    # the fused path itself is under test.
-    monkeypatch.setattr(
-        fill_lanes, "general_probe_needed", lambda k: False
-    )
-    got = batch_mod.align_pairs(
-        pairs, scoring_mat_name="BLOSUM62", with_traceback=False
-    )
-    assert [(r.cost, r.score) for r in want] == [
-        (r.cost, r.score) for r in got
-    ]
-
-
-def test_deferred_cost_flush_accounting(monkeypatch):
-    """Cost-only mode's coalesced finals flush across 2+ buckets, driven
-    on CPU by forcing the accelerator branch with a stubbed batch_final3
-    (ADVICE r3)."""
-    import jax.numpy as jnp
-
-    import globalign_tpu.batch as batch_mod
-    from globalign_tpu.ops import fill_pallas, fill_rows
-
-    def fake_batch_final3(tok_a, tok_b, cost_mat, gap_id, gap_open,
-                          m_true, n_true, **kw):
-        res = fill_rows.row_fill_batch(
-            tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
-            want_moves=False,
-        )
-        return jnp.asarray(res.final3)
+def test_deferred_cost_flush_accounting():
+    """Cost-only mode defers every bucket's finals into ONE coalesced
+    fetch across 2+ buckets: ``flush=False`` returns a pending handle
+    whose ``resolve()`` fetches, records a "fetch" phase, and gives the
+    eager results in input order."""
+    import globalign_jax.batch as batch_mod
 
     want = batch_mod.align_pairs(PAIRS, with_traceback=False)
-    monkeypatch.setattr(batch_mod, "_use_pallas", lambda: True)
-    monkeypatch.setattr(fill_pallas, "batch_final3", fake_batch_final3)
-    got = batch_mod.align_pairs(PAIRS, with_traceback=False)
+    phases: dict = {}
+    pending = batch_mod.align_pairs(
+        PAIRS, with_traceback=False, flush=False, phase_seconds=phases
+    )
+    assert isinstance(pending, batch_mod.PendingAlignments)
+    assert "fetch" not in phases
+    assert len({(batch_mod.bucket_length(len(a)), batch_mod.bucket_length(
+        len(b))) for a, b in PAIRS}) >= 2
+    got = pending.resolve()
+    assert "fetch" in phases
     assert want == got

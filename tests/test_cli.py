@@ -2,7 +2,7 @@
 
 import pytest
 
-from globalign_tpu.cli import build_parser, main
+from globalign_jax.cli import build_parser, main
 
 
 def test_parser_has_all_13_options():

@@ -155,9 +155,9 @@ def test_dp_compat_end_to_end_matches_engine():
         dp_array_forward,
         make_dp_array,
     )
-    from globalign_tpu import find_global_alignment
-    from globalign_tpu.ops.traceback import alignment_cost
-    from globalign_tpu.utils.matrices import SubstitutionMatrix
+    from globalign_jax import find_global_alignment
+    from globalign_jax.ops.traceback import alignment_cost
+    from globalign_jax.utils.matrices import SubstitutionMatrix
 
     for s1, s2 in [("ACGT", "AGT"), ("TAAAGCTAA", "TAGCTC"),
                    ("A", "TTTT"), ("GATTACA", "GATTACA")]:

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from globalign_tpu import find_global_alignment
-from globalign_tpu.ops import fill_scan
-from globalign_tpu.ops.traceback import alignment_cost
-from globalign_tpu.utils.matrices import SubstitutionMatrix
+from globalign_jax import find_global_alignment
+from globalign_jax.ops import fill_scan
+from globalign_jax.ops.traceback import alignment_cost
+from globalign_jax.utils.matrices import SubstitutionMatrix
 
 GOLDEN_E2E = [
     # (seq_1, seq_2, match, mismatch, gap_open_score, gap_ext_score,

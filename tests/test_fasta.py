@@ -2,8 +2,8 @@
 
 import pytest
 
-from globalign_tpu import read_first_2_seqs_from_fasta, read_seq_from_fasta
-from globalign_tpu.utils.fasta import iter_fasta_pairs
+from globalign_jax import read_first_2_seqs_from_fasta, read_seq_from_fasta
+from globalign_jax.utils.fasta import iter_fasta_pairs
 
 
 def write(tmp_path, text):

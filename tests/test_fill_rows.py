@@ -12,11 +12,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from globalign_tpu.ops import fill_rows, fill_scan
-from globalign_tpu.ops.traceback import traceback_moves
-from globalign_tpu.ops.transforms import scoring_mat_to_costing_mat
-from globalign_tpu.utils.matrices import create_scoring_mat, load_bundled_matrix
-from globalign_tpu.utils.tokenize import Alphabet, encode_padded
+from globalign_jax.ops import fill_rows, fill_scan
+from globalign_jax.ops.traceback import traceback_moves
+from globalign_jax.ops.transforms import scoring_mat_to_costing_mat
+from globalign_jax.utils.matrices import create_scoring_mat, load_bundled_matrix
+from globalign_jax.utils.tokenize import Alphabet, encode_padded
 
 
 def _dna_scheme():

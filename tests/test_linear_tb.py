@@ -10,11 +10,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from globalign_tpu.ops import fill_rows, linear_tb
-from globalign_tpu.ops.traceback import alignment_cost, traceback_moves
-from globalign_tpu.ops.transforms import scoring_mat_to_costing_mat
-from globalign_tpu.utils.matrices import create_scoring_mat, load_bundled_matrix
-from globalign_tpu.utils.tokenize import Alphabet, encode_padded
+from globalign_jax.ops import fill_rows, linear_tb
+from globalign_jax.ops.traceback import alignment_cost, traceback_moves
+from globalign_jax.ops.transforms import scoring_mat_to_costing_mat
+from globalign_jax.utils.matrices import create_scoring_mat, load_bundled_matrix
+from globalign_jax.utils.tokenize import Alphabet, encode_padded
 
 
 def _full_tb(ta, tb, cm, gid, go, s1, s2):
@@ -44,7 +44,7 @@ def test_blocked_equals_full_dna(block_rows):
         t_full = _full_tb(ta, tb, cm, gid, go, s1, s2)
         t_blk = linear_tb.align_blocked(
             np.asarray(ta), tb, cm, gid, go, s1, s2,
-            block_rows=block_rows, use_pallas=False,
+            block_rows=block_rows,
         )
         assert t_full == t_blk
         # traced path re-prices to the fill's optimal cost
@@ -77,7 +77,7 @@ def test_blocked_equals_full_blosum62():
         t_full = _full_tb(ta, tb, cm, gid, go, s1, s2)
         t_blk = linear_tb.align_blocked(
             np.asarray(ta), tb, cm, gid, go, s1, s2,
-            block_rows=13, use_pallas=False,
+            block_rows=13,
         )
         assert t_full == t_blk
 
@@ -85,15 +85,15 @@ def test_blocked_equals_full_blosum62():
 def test_aligner_switches_to_blocked_past_budget():
     """GotohAligner with a tiny moves budget must still produce the same
     alignment as with an unlimited one."""
-    from globalign_tpu.config import resolve_scheme
-    from globalign_tpu.models.gotoh import GotohAligner
+    from globalign_jax.config import resolve_scheme
+    from globalign_jax.models.gotoh import GotohAligner
 
     rng = np.random.default_rng(9)
     s1 = "".join(rng.choice(list("ACGT"), 150))
     s2 = "".join(rng.choice(list("ACGT"), 140))
     scheme = resolve_scheme(s1, s2)
-    big = GotohAligner(scheme, use_pallas=False)
-    small = GotohAligner(scheme, moves_budget_bytes=64, use_pallas=False)
+    big = GotohAligner(scheme)
+    small = GotohAligner(scheme, moves_budget_bytes=64)
     a1 = big.align(s1, s2)
     a2 = small.align(s1, s2)
     assert a1 == a2
@@ -101,65 +101,18 @@ def test_aligner_switches_to_blocked_past_budget():
 
 def test_aligner_pad_quantum_invariant():
     """Shape-bucket padding must not change any result field."""
-    from globalign_tpu.config import resolve_scheme
-    from globalign_tpu.models.gotoh import GotohAligner
+    from globalign_jax.config import resolve_scheme
+    from globalign_jax.models.gotoh import GotohAligner
 
     rng = np.random.default_rng(77)
     s1 = "".join(rng.choice(list("ACGT"), 37))
     s2 = "".join(rng.choice(list("ACGT"), 61))
     scheme = resolve_scheme(s1, s2)
-    exact = GotohAligner(scheme, use_pallas=False, pad_quantum=1)
-    padded = GotohAligner(scheme, use_pallas=False, pad_quantum=64)
+    exact = GotohAligner(scheme, pad_quantum=1)
+    padded = GotohAligner(scheme, pad_quantum=64)
     assert exact.align(s1, s2) == padded.align(s1, s2)
     assert exact.cost(s1, s2) == padded.cost(s1, s2)
     assert (exact.dp_planes(s1, s2) == padded.dp_planes(s1, s2)).all()
-
-
-def test_blocked_pallas_replay_equals_full(monkeypatch):
-    """The blocked traceback's Pallas replay path (checkpoint fill + moves
-    kernel with boundary overrides) is bit-identical to the full traceback
-    (exercised in interpret mode on CPU)."""
-    import functools
-
-    import globalign_tpu.ops.fill_pallas as fp
-
-    monkeypatch.setattr(
-        fp,
-        "stacked_fill_with_moves",
-        functools.partial(fp.stacked_fill_with_moves, interpret=True),
-    )
-    monkeypatch.setattr(
-        fp,
-        "row_fill_last_rows",
-        functools.partial(fp.row_fill_last_rows, interpret=True),
-    )
-
-    alpha = Alphabet.from_letters(("A", "C", "G", "T", "-"))
-    costing = scoring_mat_to_costing_mat(
-        create_scoring_mat(alpha, 2, -3, -2), max_score=2
-    )
-    # A NON-uniform scheme keeps this test on its subject — the stacked
-    # moves kernel with boundary overrides — now that uniform schemes
-    # dispatch to the lane kernel (test_blocked_lanes_backend_equals_full).
-    cm_np = np.asarray(costing.values).copy()
-    cm_np[0, 1] = cm_np[1, 0] = 7
-    cm = jnp.asarray(cm_np)
-    gid = jnp.int32(alpha.gap_id)
-    go = jnp.int32(4)
-    rng = np.random.default_rng(103)
-    for _ in range(4):
-        m = int(rng.integers(2, 100))
-        n = int(rng.integers(1, 100))
-        s1 = "".join(rng.choice(list("ACGT"), m))
-        s2 = "".join(rng.choice(list("ACGT"), n))
-        ta = jnp.asarray(encode_padded(alpha, s1, m))
-        tb = jnp.asarray(encode_padded(alpha, s2, n))
-        t_full = _full_tb(ta, tb, cm, gid, go, s1, s2)
-        t_blk = linear_tb.align_blocked(
-            np.asarray(ta), tb, cm, gid, go, s1, s2,
-            block_rows=16, use_pallas=True,
-        )
-        assert t_full == t_blk
 
 
 def test_device_walk_matches_host_walker():
@@ -206,234 +159,3 @@ def test_device_walk_matches_host_walker():
         j_exit = int(np.asarray(j_exit))
         assert all(op == linear_tb.OP_LEFT for op in exp[len(exp) - j_exit:])
         assert ops_np.tolist() == exp[: len(exp) - j_exit]
-
-
-def test_blocked_lanes_backend_equals_full(monkeypatch):
-    """The lane-kernel blocked path (boundary-injected checkpoint fills,
-    skewed-moves replay walked in place by _walk_block's lanes layout)
-    == the full-matrix traceback.  Pallas runs in interpret mode on CPU
-    via wrapped entry points; use_pallas is forced so align_blocked
-    takes the lanes branch for every block."""
-    from globalign_tpu.ops import fill_lanes
-
-    for name in (
-        "lanes_batch_last_rows", "lanes_batch_moves",
-        "lanes_general_last_rows", "lanes_general_moves",
-    ):
-        orig = getattr(fill_lanes, name)
-        monkeypatch.setattr(
-            fill_lanes, name,
-            (lambda o: lambda *a, **k: o(*a, **{**k, "interpret": True}))(
-                orig
-            ),
-        )
-
-    alpha = Alphabet.from_letters(("A", "C", "G", "T", "-"))
-    costing = scoring_mat_to_costing_mat(
-        create_scoring_mat(alpha, 2, -3, -2), max_score=2
-    )
-    cm = jnp.asarray(costing.values)
-    gid = jnp.int32(alpha.gap_id)
-    go = jnp.int32(4)
-    rng = np.random.default_rng(31)
-    # Block heights must pass the moves drain guard over the 256-padded
-    # column grid (2*(S_p-1) <= block rows at the widest strip, i.e.
-    # blocks >= 16 rows here); align_blocked's adaptive default always
-    # does, and infeasible blocks fall back to the stacked kernel.
-    # A general (non-uniform) matrix exercises the select-chain blocked
-    # path through the same machinery.
-    cm_gen = np.asarray(costing.values).copy()
-    cm_gen[0, 1] = cm_gen[1, 0] = 7
-    cm_gen[2, 3] = 9
-    # Two cases only: every distinct shape recompiles the interpret-mode
-    # lane kernels (~1 min each here, and each adds to the suite's
-    # cumulative LLVM-JIT load, CLAUDE.md).  Multi-block geometry and
-    # boundary injection are covered per-kernel in test_fill_lanes; this
-    # test pins the e2e blocked path for one uniform (odd block height)
-    # and one general-matrix case.
-    for block_rows, m, n, mat in [
-        (21, 42, 61, cm),
-        (16, 32, 40, jnp.asarray(cm_gen)),
-    ]:
-        s1 = "".join(rng.choice(list("ACGT"), m))
-        s2 = "".join(rng.choice(list("ACGT"), n))
-        ta = jnp.asarray(encode_padded(alpha, s1, m))
-        tb = jnp.asarray(encode_padded(alpha, s2, n))
-        t_full = _full_tb(ta, tb, mat, gid, go, s1, s2)
-        t_blk = linear_tb.align_blocked(
-            np.asarray(ta), tb, mat, gid, go, s1, s2,
-            block_rows=block_rows, use_pallas=True,
-        )
-        assert t_full == t_blk, (block_rows, m, n)
-
-
-def test_lanes_group_walk_matches_per_tile():
-    """The GROUPED walk (stacked same-shape tile buffers + flat_base
-    offsets, batch.WALK_GROUP_BYTES path) must be bit-identical to
-    per-tile walks — tapes, counts, and j_exits."""
-    from globalign_tpu.ops import fill_lanes
-
-    rng = np.random.default_rng(23)
-    B, m_pad, n_pad, w = 2, 14, 18, 4
-    go = 3
-    tiles = []
-    for g in range(3):
-        ta = rng.integers(1, 5, (B, m_pad + 1)).astype(np.int32)
-        tb = rng.integers(1, 5, (B, n_pad + 1)).astype(np.int32)
-        ta[:, 0] = 0
-        tb[:, 0] = 0
-        mt = rng.integers(1, m_pad + 1, B).astype(np.int32)
-        nt = rng.integers(1, n_pad + 1, B).astype(np.int32)
-        final3, mv = fill_lanes.lanes_batch_moves(
-            jnp.asarray(ta), jnp.asarray(tb), 0, 5, 3, 2, go,
-            jnp.asarray(mt), jnp.asarray(nt), w=w, interpret=True,
-        )
-        tiles.append((final3, mv, jnp.asarray(mt), jnp.asarray(nt)))
-    S_p, _R = fill_lanes._lanes_geometry(B, n_pad, w, moves=True)
-    bases = jnp.arange(B, dtype=jnp.int32) * S_p
-    tape_len = m_pad + n_pad + 1
-
-    per_tile = [
-        linear_tb.lanes_tile_walk(mv, f3, mt, nt, bases, w, tape_len)
-        for f3, mv, mt, nt in tiles
-    ]
-    G = len(tiles)
-    tile_elems = int(np.prod(tiles[0][1].shape))
-    grouped = linear_tb.lanes_tile_walk(
-        jnp.stack([t[1] for t in tiles]),
-        jnp.concatenate([t[0] for t in tiles], axis=0),
-        jnp.concatenate([t[2] for t in tiles]),
-        jnp.concatenate([t[3] for t in tiles]),
-        jnp.tile(bases, G),
-        w,
-        tape_len,
-        flat_base=jnp.repeat(
-            jnp.arange(G, dtype=jnp.int32) * tile_elems, B
-        ),
-    )
-    for g in range(G):
-        tp, ct, jx = (np.asarray(x) for x in per_tile[g])
-        gt = np.asarray(grouped[0])[g * B : (g + 1) * B]
-        gc = np.asarray(grouped[1])[g * B : (g + 1) * B]
-        gj = np.asarray(grouped[2])[g * B : (g + 1) * B]
-        assert (ct == gc).all() and (jx == gj).all(), g
-        for b in range(B):
-            assert (tp[b, : ct[b]] == gt[b, : ct[b]]).all(), (g, b)
-
-
-def test_lanes_mega_walk_jagged_fuzz():
-    """Property fuzz for the chunk-wide mega walk: random jagged tiles
-    of DIFFERENT shapes and widths walked together via per-pair
-    geometry vectors must reproduce the host unskew + row walk pair for
-    pair (tapes, counts, j_exits, and the assembled strings)."""
-    from globalign_tpu.ops import fill_lanes
-
-    rng = np.random.default_rng(31)
-    letters = np.array(list("ACGT"))
-    go = 4
-    tiles = []
-    for (B, m_pad, n_pad, w) in ((2, 10, 12, 4), (3, 25, 17, 4),
-                                 (2, 8, 33, 8)):
-        ta = rng.integers(1, 5, (B, m_pad + 1)).astype(np.int32)
-        tb = rng.integers(1, 5, (B, n_pad + 1)).astype(np.int32)
-        ta[:, 0] = 0
-        tb[:, 0] = 0
-        mt = rng.integers(1, m_pad + 1, B).astype(np.int32)
-        nt = rng.integers(1, n_pad + 1, B).astype(np.int32)
-        final3, mv = fill_lanes.lanes_batch_moves(
-            jnp.asarray(ta), jnp.asarray(tb), 0, 5, 3, 2, go,
-            jnp.asarray(mt), jnp.asarray(nt), w=w, interpret=True,
-        )
-        S_p, R = fill_lanes._lanes_geometry(B, n_pad, w, moves=True)
-        tiles.append(dict(
-            ta=ta, tb=tb, mt=mt, nt=nt, w=w, S_p=S_p, R=R,
-            m_pad=m_pad, n_pad=n_pad, final3=np.asarray(final3), mv=mv,
-        ))
-
-    sel, meta, off, row0 = [], [], 0, 0
-    tape_need = max(t["m_pad"] + t["n_pad"] + 1 for t in tiles)
-    for t in tiles:
-        elems = int(np.prod(t["mv"].shape))
-        r128 = int(t["mv"].shape[-2]) * 128
-        maxrow = int(t["mv"].shape[-3]) - 1
-        for b in range(len(t["mt"])):
-            sel.append(row0 + b)
-            meta.append((
-                int(t["mt"][b]), int(t["nt"][b]), t["w"], r128, maxrow,
-                b * t["S_p"], off,
-            ))
-        row0 += len(t["mt"])
-        off += elems
-    blob = jnp.concatenate([t["mv"].reshape(-1) for t in tiles])
-    vals_full = jnp.concatenate(
-        [jnp.asarray(t["final3"]) for t in tiles], axis=0
-    )
-    vals, tapes, counts, jx = linear_tb.lanes_mega_walk(
-        blob, vals_full, jnp.asarray(np.asarray(sel, np.int32)),
-        jnp.asarray(np.asarray(meta, np.int32)), tape_need,
-    )
-    tapes, counts = np.asarray(tapes), np.asarray(counts)
-
-    k = 0
-    for t in tiles:
-        rows = fill_lanes.lanes_moves_to_row(
-            np.asarray(t["mv"]), len(t["mt"]), t["n_pad"], t["w"],
-            t["m_pad"],
-        )
-        for b in range(len(t["mt"])):
-            m, n = int(t["mt"][b]), int(t["nt"][b])
-            s1 = "".join(letters[t["ta"][b, 1 : m + 1] - 1])
-            s2 = "".join(letters[t["tb"][b, 1 : n + 1] - 1])
-            want = traceback_moves(
-                rows[b], s1, s2, t["final3"][b], layout="row"
-            )
-            got = linear_tb.assemble_from_tapes(
-                [tapes[k, : counts[k]]], s1, s2
-            )
-            assert got == (
-                want.seq_1_aligned, want.middle_part, want.seq_2_aligned
-            ), (k, s1, s2)
-            k += 1
-
-
-def test_lanes_tile_walk_matches_host_walk():
-    """Batch traceback with the walk ON DEVICE (lanes_tile_walk over the
-    skewed lanes moves buffer, one strip_base per pair) must reproduce
-    the host unskew + row-layout walk pair for pair — alignment strings
-    and trailing row-0 LEFT semantics included (the serving fast path,
-    batch._lanes_walk_fills + lanes_mega_walk)."""
-    from globalign_tpu.ops import fill_lanes
-
-    rng = np.random.default_rng(17)
-    letters = np.array(list("ACGT"))
-    B, m_pad, n_pad, w = 3, 22, 30, 4
-    go = 4
-    ta = rng.integers(1, 5, (B, m_pad + 1)).astype(np.int32)
-    tb = rng.integers(1, 5, (B, n_pad + 1)).astype(np.int32)
-    ta[:, 0] = 0
-    tb[:, 0] = 0
-    mt = rng.integers(1, m_pad + 1, B).astype(np.int32)
-    nt = rng.integers(1, n_pad + 1, B).astype(np.int32)
-    final3, mv = fill_lanes.lanes_batch_moves(
-        jnp.asarray(ta), jnp.asarray(tb), 0, 5, 3, 2, go,
-        jnp.asarray(mt), jnp.asarray(nt), w=w, interpret=True,
-    )
-    final3 = np.asarray(final3)
-    S_p, _R = fill_lanes._lanes_geometry(B, n_pad, w, moves=True)
-    tapes, counts, _jx = linear_tb.lanes_tile_walk(
-        mv, jnp.asarray(final3), jnp.asarray(mt), jnp.asarray(nt),
-        jnp.arange(B, dtype=jnp.int32) * S_p, w, m_pad + n_pad + 1,
-    )
-    tapes, counts = np.asarray(tapes), np.asarray(counts)
-    rows = fill_lanes.lanes_moves_to_row(np.asarray(mv), B, n_pad, w, m_pad)
-    for b in range(B):
-        m, n = int(mt[b]), int(nt[b])
-        s1 = "".join(letters[ta[b, 1 : m + 1] - 1])
-        s2 = "".join(letters[tb[b, 1 : n + 1] - 1])
-        want = traceback_moves(rows[b], s1, s2, final3[b], layout="row")
-        got = linear_tb.assemble_from_tapes(
-            [tapes[b, : int(counts[b])]], s1, s2
-        )
-        assert got == (
-            want.seq_1_aligned, want.middle_part, want.seq_2_aligned
-        ), b

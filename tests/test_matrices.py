@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from globalign_tpu import (
+from globalign_jax import (
     check_big_main_diag,
     check_symmetric,
     create_costing_mat,
@@ -13,7 +13,7 @@ from globalign_tpu import (
     read_scoring_mat,
     validate_scoring_mat_keys,
 )
-from globalign_tpu.utils.tokenize import Alphabet
+from globalign_jax.utils.tokenize import Alphabet
 
 
 # -- check_symmetric: the reference's own parametrized cases
@@ -142,7 +142,7 @@ def test_validate_scoring_mat_keys():
 
 def test_nested_dict_round_trip():
     b62 = load_bundled_matrix("BLOSUM62")
-    from globalign_tpu import SubstitutionMatrix
+    from globalign_jax import SubstitutionMatrix
 
     back = SubstitutionMatrix.from_nested_dict(b62.to_nested_dict())
     np.testing.assert_array_equal(back.values, b62.values)

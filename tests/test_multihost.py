@@ -74,7 +74,7 @@ def test_two_process_runner_matches_single_process(tmp_path):
     assert sorted(rows) == list(range(16))
 
     from tests.multihost_harness import _pairs
-    from globalign_tpu.batch import align_pairs
+    from globalign_jax.batch import align_pairs
 
     want = align_pairs(_pairs(), with_traceback=False)
     for i, r in enumerate(want):
@@ -92,7 +92,7 @@ def test_two_process_batch_cli_distributed(tmp_path):
     shared input, per-process output shards that merge into the
     single-process result."""
     from tests.multihost_harness import _pairs
-    from globalign_tpu.batch import align_pairs
+    from globalign_jax.batch import align_pairs
 
     pairs = _pairs()
     tsv = tmp_path / "pairs.tsv"
@@ -106,7 +106,7 @@ def test_two_process_batch_cli_distributed(tmp_path):
     procs = [
         subprocess.Popen(
             [
-                sys.executable, "-m", "globalign_tpu.batch_cli",
+                sys.executable, "-m", "globalign_jax.batch_cli",
                 "--pairs_tsv", str(tsv), "-o", str(out),
                 "--platform", "cpu", "--chunk_pairs", "4",
                 "--distributed",
@@ -147,7 +147,7 @@ def test_two_process_distributed_traceback(tmp_path):
     alignment + CIGAR columns that match the single-process result
     exactly (deterministic tie order makes strings comparable)."""
     from tests.multihost_harness import _pairs
-    from globalign_tpu.batch import align_pairs
+    from globalign_jax.batch import align_pairs
 
     pairs = _pairs()
     tsv = tmp_path / "pairs.tsv"
@@ -161,7 +161,7 @@ def test_two_process_distributed_traceback(tmp_path):
     procs = [
         subprocess.Popen(
             [
-                sys.executable, "-m", "globalign_tpu.batch_cli",
+                sys.executable, "-m", "globalign_jax.batch_cli",
                 "--pairs_tsv", str(tsv), "-o", str(out),
                 "--platform", "cpu", "--chunk_pairs", "4",
                 "--with_traceback", "--cigar",

@@ -10,7 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from globalign_tpu.utils import native
+from globalign_jax.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
@@ -22,7 +22,7 @@ def test_fasta_native_matches_python(tmp_path, monkeypatch):
     fa.write_text(
         ">first record\nacgt\nACGTT\n\n>second\ntttt\n>third desc here\nGG\ncc\n"
     )
-    from globalign_tpu.utils.fasta import read_seq_from_fasta
+    from globalign_jax.utils.fasta import read_seq_from_fasta
 
     native_records = list(read_seq_from_fasta(fa))
     monkeypatch.setattr(native, "_load_failed", True)
@@ -40,7 +40,7 @@ def test_fasta_native_matches_python(tmp_path, monkeypatch):
 def test_fasta_native_errors_match_python(tmp_path, monkeypatch, content):
     fa = tmp_path / "bad.fasta"
     fa.write_text(content)
-    from globalign_tpu.utils.fasta import read_seq_from_fasta
+    from globalign_jax.utils.fasta import read_seq_from_fasta
 
     with pytest.raises(RuntimeError) as native_err:
         list(read_seq_from_fasta(fa))
@@ -52,11 +52,11 @@ def test_fasta_native_errors_match_python(tmp_path, monkeypatch, content):
 
 
 def test_traceback_native_matches_python(monkeypatch):
-    from globalign_tpu.ops import fill_rows
-    from globalign_tpu.ops.traceback import traceback_moves
-    from globalign_tpu.ops.transforms import scoring_mat_to_costing_mat
-    from globalign_tpu.utils.matrices import create_scoring_mat
-    from globalign_tpu.utils.tokenize import Alphabet, encode_padded
+    from globalign_jax.ops import fill_rows
+    from globalign_jax.ops.traceback import traceback_moves
+    from globalign_jax.ops.transforms import scoring_mat_to_costing_mat
+    from globalign_jax.utils.matrices import create_scoring_mat
+    from globalign_jax.utils.tokenize import Alphabet, encode_padded
 
     alpha = Alphabet.from_letters(("A", "C", "G", "T", "-"))
     costing = scoring_mat_to_costing_mat(
@@ -87,7 +87,7 @@ def test_traceback_native_matches_python(monkeypatch):
 def test_bucketizer_matches_python():
     import ctypes
 
-    from globalign_tpu.batch import bucket_length
+    from globalign_jax.batch import bucket_length
 
     lib = native.load()
     lengths = np.array([1, 31, 32, 33, 1000, 7], dtype=np.int64)

@@ -8,10 +8,10 @@ wavefront fill with a textbook dense fill on random pairs, traced-path cost
 import numpy as np
 import pytest
 
-from globalign_tpu import draw_two_random_seqs, resolve_scheme
-from globalign_tpu.models.gotoh import GotohAligner
-from globalign_tpu.ops.traceback import alignment_cost
-from globalign_tpu.ops.transforms import split_deltas
+from globalign_jax import draw_two_random_seqs, resolve_scheme
+from globalign_jax.models.gotoh import GotohAligner
+from globalign_jax.ops.traceback import alignment_cost
+from globalign_jax.ops.transforms import split_deltas
 
 from .oracle import oracle_cost, oracle_fill
 
@@ -129,9 +129,9 @@ def test_random_costing_matrices_vs_oracle():
     import numpy as np
     import jax.numpy as jnp
 
-    from globalign_tpu.ops import fill_rows
-    from globalign_tpu.utils.matrices import SubstitutionMatrix
-    from globalign_tpu.utils.tokenize import Alphabet, encode_padded
+    from globalign_jax.ops import fill_rows
+    from globalign_jax.utils.matrices import SubstitutionMatrix
+    from globalign_jax.utils.tokenize import Alphabet, encode_padded
 
     from .oracle import oracle_cost
 

@@ -2,7 +2,7 @@
 
 import pytest
 
-from globalign_tpu import draw_random_seq, draw_two_random_seqs
+from globalign_jax import draw_random_seq, draw_two_random_seqs
 
 
 @pytest.mark.parametrize(

@@ -54,7 +54,7 @@ def _ref_env() -> dict:
     env = {
         k: v
         for k, v in os.environ.items()
-        if not k.startswith(("JAX_", "XLA_", "TPU_"))
+        if not k.startswith(("JAX_", "XLA_"))
     }
     env["PYTHONPATH"] = str(REF_SRC)
     return env
@@ -118,7 +118,7 @@ def _random_cases(rng: np.random.Generator, n_cases: int) -> list[dict]:
 
 
 def test_score_cost_parity_with_live_reference():
-    from globalign_tpu import find_global_alignment
+    from globalign_jax import find_global_alignment
 
     rng = np.random.default_rng(2026)
     cases = _random_cases(rng, 24)
@@ -133,8 +133,8 @@ def test_score_cost_parity_with_live_reference():
         # Stronger than the reference's own asserts: our deterministic
         # alignment must PRICE to the reported cost (the reference cannot
         # promise this for its random tie-breaks; SURVEY.md quirk 2).
-        from globalign_tpu.ops.traceback import alignment_cost
-        from globalign_tpu.utils.matrices import SubstitutionMatrix
+        from globalign_jax.ops.traceback import alignment_cost
+        from globalign_jax.utils.matrices import SubstitutionMatrix
 
         costing = SubstitutionMatrix.from_nested_dict(res.costing_mat)
         assert (
@@ -170,7 +170,7 @@ def _write_random_scoring_mat(rng, path, b: int) -> None:
 def test_parity_custom_matrix_file(tmp_path):
     """Scheme branch (b): custom scoring_mat_path files, odd AND even
     max score (reference start.py:291-318)."""
-    from globalign_tpu import find_global_alignment
+    from globalign_jax import find_global_alignment
 
     rng = np.random.default_rng(41)
     cases = []
@@ -199,7 +199,7 @@ def test_parity_at_reference_envelope():
     accumulation would actually surface.  The reference needs ~30 s of
     pure-Python DP here (measured ~1.6 us/cell); budgeted inside the
     subprocess timeout."""
-    from globalign_tpu import find_global_alignment
+    from globalign_jax import find_global_alignment
 
     rng = np.random.default_rng(404)
     case = {
@@ -226,8 +226,8 @@ def test_envelope_boundary_accept_and_refuse():
     ~1.6 us/cell Python fill would need ~32 s for a second
     envelope-scale case; its accept behavior at scale is pinned by
     test_parity_at_reference_envelope)."""
-    from globalign_tpu import find_global_alignment
-    from globalign_tpu.config import check_seq_lengths
+    from globalign_jax import find_global_alignment
+    from globalign_jax.config import check_seq_lengths
 
     rng = np.random.default_rng(405)
     over = {
@@ -276,8 +276,8 @@ def test_envelope_boundary_accept_and_refuse():
     assert 4472 * 4472 < 20_000_000
     res = find_global_alignment(**under)
     assert res.cost >= 0
-    from globalign_tpu.ops.traceback import alignment_cost
-    from globalign_tpu.utils.matrices import SubstitutionMatrix
+    from globalign_jax.ops.traceback import alignment_cost
+    from globalign_jax.utils.matrices import SubstitutionMatrix
 
     costing = SubstitutionMatrix.from_nested_dict(res.costing_mat)
     assert (
@@ -293,7 +293,7 @@ def test_parity_fasta_input(tmp_path):
     """FASTA-file input path against the live reference (reference
     start.py:614-688): multi-line records, lower-case upcasing, first
     two records taken."""
-    from globalign_tpu import find_global_alignment
+    from globalign_jax import find_global_alignment
 
     fa = tmp_path / "pair.fasta"
     fa.write_text(
@@ -322,7 +322,7 @@ def test_parity_fasta_input(tmp_path):
 def test_parity_long_pairs():
     """A few 200-500-length pairs (the reference supports ~4.4 kb; the
     short fuzz never leaves length 40)."""
-    from globalign_tpu import find_global_alignment
+    from globalign_jax import find_global_alignment
 
     rng = np.random.default_rng(97)
     prot = list("ARNDCQEGHILKMFPSTWYV")

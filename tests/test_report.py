@@ -2,7 +2,7 @@
 
 import math
 
-from globalign_tpu import find_global_alignment, prettify_mat
+from globalign_jax import find_global_alignment, prettify_mat
 
 TUTORIAL_GOLDEN = """seq_1
 seq_2
@@ -120,7 +120,7 @@ def test_tutorial_python_api_report_exact():
     """Second reference-tutorial golden (reference tutorial.qmd:141-173),
     including the alignment strings (the deterministic tie-break coincides
     with the reference's choice here)."""
-    from globalign_tpu import find_global_alignment
+    from globalign_jax import find_global_alignment
 
     r = find_global_alignment(
         seq_1="CCTGAA",
@@ -134,7 +134,7 @@ def test_tutorial_python_api_report_exact():
 
 
 def test_cigar_emission():
-    from globalign_tpu import alignment_to_cigar, find_global_alignment
+    from globalign_jax import alignment_to_cigar, find_global_alignment
 
     r = find_global_alignment(seq_1="ACGT", seq_2="AGT")
     assert r.seq_1_aligned == "ACGT" and r.seq_2_aligned == "A-GT"

@@ -5,8 +5,8 @@ import json
 import numpy as np
 import pytest
 
-from globalign_tpu.api import find_global_alignment
-from globalign_tpu.runner import (
+from globalign_jax.api import find_global_alignment
+from globalign_jax.runner import (
     BatchRunner,
     RunStats,
     pairs_from_fasta,
@@ -121,7 +121,7 @@ def test_pairs_from_tsv_and_fasta(tmp_path):
 
 
 def test_batch_cli_end_to_end(tmp_path):
-    from globalign_tpu.batch_cli import main
+    from globalign_jax.batch_cli import main
 
     tsv = tmp_path / "p.tsv"
     tsv.write_text("ACGT\tAGT\nGATTACA\tGCATGCT\n")
@@ -143,25 +143,6 @@ def test_batch_cli_end_to_end(tmp_path):
     rc = main(["--pairs_tsv", str(tsv), "-o", str(out), "--chunk_pairs", "1"])
     assert rc == 0
     assert len(out.read_text().splitlines()) == 2
-
-
-def test_batch_cli_fuse_chunks_flag(tmp_path, monkeypatch):
-    """--fuse_chunks flips the opt-in chunk-fusion toggles for the
-    process and produces identical results (on CPU the fused branches
-    are not reachable — this pins the FLAG plumbing and that defaults
-    stay off otherwise)."""
-    import globalign_tpu.batch as batch_mod
-    from globalign_tpu.batch_cli import main
-
-    monkeypatch.setattr(batch_mod, "COST_CHUNK_JIT", False)
-    monkeypatch.setattr(batch_mod, "TB_CHUNK_JIT", False)
-    tsv = tmp_path / "p.tsv"
-    tsv.write_text("ACGT\tAGT\nGATTACA\tGCATGCT\n")
-    out = tmp_path / "out.tsv"
-    rc = main(["--pairs_tsv", str(tsv), "-o", str(out), "--fuse_chunks"])
-    assert rc == 0
-    assert batch_mod.COST_CHUNK_JIT and batch_mod.TB_CHUNK_JIT
-    assert _read_results(out)[0] == (7, 0)
 
 
 def test_stats_dict_sane():
@@ -189,7 +170,7 @@ def test_runner_tolerates_torn_manifest_line(tmp_path):
 
 
 def test_batch_cli_cigar_column(tmp_path):
-    from globalign_tpu.batch_cli import main
+    from globalign_jax.batch_cli import main
 
     tsv = tmp_path / "p.tsv"
     tsv.write_text("ACGT\tAGT\n")
@@ -262,7 +243,7 @@ def test_runner_unjournaled_rows_deduped_on_resume(tmp_path):
 
 def test_batch_cli_shard_cigar(tmp_path):
     """--shard now supports traceback/CIGAR mode (sharded moves path)."""
-    from globalign_tpu.batch_cli import main
+    from globalign_jax.batch_cli import main
 
     tsv = tmp_path / "p.tsv"
     tsv.write_text("ACGT\tAGT\n")
@@ -292,7 +273,7 @@ def test_runner_matrix_scheme_cached_resolution(tmp_path):
     ]
     out = tmp_path / "res.tsv"
     log = open(tmp_path / "log", "w")
-    import globalign_tpu.runner as runner_mod
+    import globalign_jax.runner as runner_mod
 
     calls = []
     orig = runner_mod.resolve_scheme

@@ -10,11 +10,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from globalign_tpu.ops import fill_rows
-from globalign_tpu.ops.transforms import scoring_mat_to_costing_mat
-from globalign_tpu.parallel.seqpar import make_strip_mesh, sharded_pair_cost
-from globalign_tpu.utils.matrices import create_scoring_mat, load_bundled_matrix
-from globalign_tpu.utils.tokenize import Alphabet, encode_padded
+from globalign_jax.ops import fill_rows
+from globalign_jax.ops.transforms import scoring_mat_to_costing_mat
+from globalign_jax.parallel.seqpar import make_strip_mesh, sharded_pair_cost
+from globalign_jax.utils.matrices import create_scoring_mat, load_bundled_matrix
+from globalign_jax.utils.tokenize import Alphabet, encode_padded
 
 
 @pytest.fixture(scope="module")
@@ -22,7 +22,7 @@ def strip_mesh():
     return make_strip_mesh()
 
 
-def _check(mesh, alpha, costing, s1, s2, block_rows, go=4, backend="scan"):
+def _check(mesh, alpha, costing, s1, s2, block_rows, go=4):
     cm = jnp.asarray(costing.values)
     gid = jnp.int32(alpha.gap_id)
     ta = np.asarray(encode_padded(alpha, s1, len(s1)))
@@ -35,14 +35,13 @@ def _check(mesh, alpha, costing, s1, s2, block_rows, go=4, backend="scan"):
     )
     got = sharded_pair_cost(
         mesh, ta, tb, costing.values, alpha.gap_id, go,
-        block_rows=block_rows, backend=backend,
+        block_rows=block_rows,
     )
-    assert (want == got).all(), (s1, s2, block_rows, backend, want, got)
+    assert (want == got).all(), (s1, s2, block_rows, want, got)
 
 
-@pytest.mark.parametrize("backend", ["scan", "pallas_interpret"])
 @pytest.mark.parametrize("block_rows", [1, 3, 16, 64])
-def test_seqpar_matches_single_device_dna(strip_mesh, block_rows, backend):
+def test_seqpar_matches_single_device_dna(strip_mesh, block_rows):
     alpha = Alphabet.from_letters(("A", "C", "G", "T", "-"))
     costing = scoring_mat_to_costing_mat(
         create_scoring_mat(alpha, 2, -3, -2), max_score=2
@@ -53,7 +52,7 @@ def test_seqpar_matches_single_device_dna(strip_mesh, block_rows, backend):
         n = int(rng.integers(8, 120))  # n >= D so every strip is nonempty
         s1 = "".join(rng.choice(list("ACGT"), m))
         s2 = "".join(rng.choice(list("ACGT"), n))
-        _check(strip_mesh, alpha, costing, s1, s2, block_rows, backend=backend)
+        _check(strip_mesh, alpha, costing, s1, s2, block_rows)
 
 
 def test_seqpar_matches_single_device_blosum(strip_mesh):
@@ -83,14 +82,12 @@ def test_seqpar_gap_spanning_strips(strip_mesh):
     s2 = "AC" + "G" * 60  # optimal path: 60-wide gap run across strips
     _check(strip_mesh, alpha, costing, s1, s2, block_rows=4)
     _check(strip_mesh, alpha, costing, s2, s1, block_rows=4)
-    _check(strip_mesh, alpha, costing, s1, s2, block_rows=4,
-           backend="pallas_interpret")
 
 
 def test_seqpar_short_seq2_guard(strip_mesh):
     """n < D must not produce zero-width strips (degenerate fallback)."""
-    from globalign_tpu.ops import fill_rows
-    from globalign_tpu.parallel.seqpar import sharded_pair_cost
+    from globalign_jax.ops import fill_rows
+    from globalign_jax.parallel.seqpar import sharded_pair_cost
 
     alpha = Alphabet.from_letters(("A", "C", "G", "T", "-"))
     costing = scoring_mat_to_costing_mat(
@@ -112,9 +109,9 @@ def test_sharded_block_last_rows_matches_single_device(strip_mesh):
     """The checkpoint-pass primitive: a K-row block fill with INJECTED
     row-0/column-0 boundaries, column-sharded over the mesh, must
     reproduce the single-device block fill row bit-for-bit."""
-    from globalign_tpu.ops.fill_rows import row_fill
-    from globalign_tpu.ops.fill_scan import BIG, default_boundary
-    from globalign_tpu.parallel.seqpar import sharded_block_last_rows
+    from globalign_jax.ops.fill_rows import row_fill
+    from globalign_jax.ops.fill_scan import BIG, default_boundary
+    from globalign_jax.parallel.seqpar import sharded_block_last_rows
 
     rng = np.random.default_rng(9)
     alpha = Alphabet.from_letters(("A", "C", "G", "T", "-"))
@@ -158,7 +155,6 @@ def test_sharded_block_last_rows_matches_single_device(strip_mesh):
         got = sharded_block_last_rows(
             strip_mesh, ta_blk, tb, costing.values, alpha.gap_id, 4,
             state_s, col0_np[:, i0 : i1 + 1], block_rows=3,
-            backend="scan",
         )
         assert (got == states[bi]).all(), (bi, got, states[bi])
         state_s = got
@@ -167,8 +163,8 @@ def test_sharded_block_last_rows_matches_single_device(strip_mesh):
 def test_align_blocked_with_mesh_matches_unsharded(strip_mesh):
     """align_blocked(mesh=...) — the column-sharded checkpoint pass —
     must produce the identical alignment to the single-device path."""
-    from globalign_tpu.config import resolve_scheme
-    from globalign_tpu.ops.linear_tb import align_blocked
+    from globalign_jax.config import resolve_scheme
+    from globalign_jax.ops.linear_tb import align_blocked
 
     rng = np.random.default_rng(31)
     s1 = "".join(rng.choice(list("ACGT"), 83))
@@ -177,7 +173,7 @@ def test_align_blocked_with_mesh_matches_unsharded(strip_mesh):
     ta = encode_padded(scheme.alphabet, s1, len(s1))
     tb = encode_padded(scheme.alphabet, s2, len(s2))
 
-    kw = dict(block_rows=16, use_pallas=False)
+    kw = dict(block_rows=16)
     want = align_blocked(
         np.asarray(ta), jnp.asarray(tb), scheme.costing.values,
         scheme.alphabet.gap_id, scheme.gap_open_cost, s1, s2, **kw

@@ -1,15 +1,16 @@
 """Multi-device data-parallel path on the 8-device virtual CPU mesh.
 
-The reference has no distributed anything (SURVEY.md §2); this is the TPU
-framework's pod-scaling axis, validated without hardware via
+The reference has no distributed anything (SURVEY.md §2); this is the
+engine's multi-device scaling axis, validated without hardware via
 xla_force_host_platform_device_count (SURVEY.md §4 item 3).
 """
 
 import jax
 import numpy as np
+import pytest
 
-from globalign_tpu import align_pairs, find_global_alignment
-from globalign_tpu.parallel.mesh import make_pair_mesh
+from globalign_jax import align_pairs, find_global_alignment
+from globalign_jax.parallel.mesh import make_pair_mesh
 
 
 def test_virtual_mesh_has_8_devices(cpu_mesh):
@@ -74,415 +75,115 @@ def test_sharded_traceback_matches_unsharded(cpu_mesh):
         assert s.seq_2_aligned == l.seq_2_aligned
 
 
-def test_sharded_lanes_moves_reassembly(cpu_mesh, monkeypatch):
-    """The sharded-traceback lane-kernel plumbing (skewed per-tile
-    buffers out of shard_map, host-side D*T unskew/reassembly, pad
-    trims) is only reachable on accelerators — exercise it on the CPU
-    mesh with stubbed kernels: the kernel stub stamps every tile's
-    buffer with its first pair's first token, the unskew stub fans the
-    stamp out per pair, so the reassembled moves pin the shard/tile/pair
-    bookkeeping exactly."""
+def _token_batch(name, B=10, M=23, N=17, seed=0):
+    from .schemes import scheme
+
+    letters, costing, go = scheme(name)
+    rng = np.random.default_rng(seed)
+    a = costing.alphabet
+    tok_a = np.zeros((B, M + 1), np.int32)
+    tok_b = np.zeros((B, N + 1), np.int32)
+    mt = rng.integers(1, M + 1, B).astype(np.int32)
+    nt = rng.integers(1, N + 1, B).astype(np.int32)
+    seqs = []
+    for b in range(B):
+        s1 = "".join(rng.choice(list(letters), mt[b]))
+        s2 = "".join(rng.choice(list(letters), nt[b]))
+        tok_a[b, 1 : mt[b] + 1] = a.encode(s1)
+        tok_b[b, 1 : nt[b] + 1] = a.encode(s2)
+        seqs.append((s1, s2))
+    consts = (costing.values, a.gap_id, go)
+    return tok_a, tok_b, consts, mt, nt, seqs
+
+
+@pytest.mark.parametrize("mode", ["costs", "moves"])
+@pytest.mark.parametrize("name", ["dna_default", "BLOSUM62", "odd_b",
+                                  "alpha_29_0"])
+def test_sharded_fill_matches_unsharded_grid(cpu_mesh, name, mode):
+    """The shard_map fills over the 8-device mesh (10 pairs: pad + drop)
+    equal the unsharded row scan: final lanes, and move codes walked to
+    identical alignments."""
     import jax.numpy as jnp
 
-    from globalign_tpu.config import resolve_scheme
-    from globalign_tpu.ops import fill_lanes
-    from globalign_tpu.parallel import mesh as mesh_mod
+    from globalign_jax.ops import fill_rows
+    from globalign_jax.ops.traceback import traceback_moves
+    from globalign_jax.parallel import mesh as mesh_mod
 
-    scheme = resolve_scheme("ACGT", "ACGT")  # default scheme: uniform
-    B, m_pad, n_pad = 10, 12, 16  # 10 pairs over 8 devices: pad+drop
-    rng = np.random.default_rng(21)
-    tok_a = np.zeros((B, m_pad + 1), np.int32)
-    tok_b = np.zeros((B, n_pad + 1), np.int32)
-    tok_a[:, 1:] = rng.integers(1, 5, (B, m_pad))
-    tok_b[:, 1:] = rng.integers(1, 5, (B, n_pad))
-    m_true = np.full(B, m_pad, np.int32)
-    n_true = np.full(B, n_pad, np.int32)
-
-    plan = fill_lanes.lanes_plan(2, m_pad, n_pad, moves=True)  # Bl = 2
-    assert plan is not None
-    w, tile_l = plan
-
-    def stub_kernel(ta, tb, *a, **k):
-        vals = jnp.stack([ta[:, 1]] * 3, axis=-1)  # (tile, 3)
-        mv = jnp.broadcast_to(
-            ta[0, 1].astype(jnp.uint8), (8, 1, 128)
-        )  # stamped with the tile's first pair's first token
-        return vals, mv
-
-    def stub_unskew(mv, Bq, npad, wq, mpad):
-        assert (Bq, npad, wq, mpad) == (tile_l, n_pad, w, m_pad)
-        return np.full(
-            (Bq, mpad + 1, npad + 1), np.asarray(mv)[0, 0, 0], np.uint8
-        )
-
-    monkeypatch.setattr(fill_lanes, "lanes_batch_moves", stub_kernel)
-    monkeypatch.setattr(fill_lanes, "lanes_moves_to_row", stub_unskew)
-
-    final3, moves = mesh_mod.sharded_fill_moves(
-        cpu_mesh,
-        tok_a,
-        tok_b,
-        scheme.costing.values,
-        scheme.alphabet.gap_id,
-        scheme.gap_open_cost,
-        m_true,
-        n_true,
-        use_pallas=True,
-    )
-    assert final3.shape == (B, 3) and moves.shape == (B, m_pad + 1, n_pad + 1)
-    Bl = -(-B // 8)  # per-shard pairs after padding (16 total / 8)
-    for idx in range(B):
-        # final3 rides the all-gather: stamped with the pair's own token.
-        assert (final3[idx] == tok_a[idx, 1]).all(), idx
-        # moves ride the skewed per-tile buffers: stamped with the first
-        # pair of this pair's tile.
-        shard, off = divmod(idx, Bl)
-        tile_first = shard * Bl + (off // tile_l) * tile_l
-        assert (moves[idx] == tok_a[tile_first, 1]).all(), idx
-
-
-def test_sharded_general_lanes_unstubbed_interpret(cpu_mesh, monkeypatch):
-    """The REAL general-matrix lane kernels (bitmask substitution mode)
-    executed inside shard_map on the virtual mesh — Pallas interpret
-    mode, tiny shapes/width (w clamped to 8: CLAUDE.md LLVM-JIT note).
-    Spies DELEGATE to the real kernels (recording, not stubbing) so the
-    assertion covers actual multi-device kernel execution, and results
-    are pinned against the unsharded row-scan fill."""
-    import jax.numpy as jnp
-
-    from globalign_tpu.config import resolve_scheme
-    from globalign_tpu.ops import fill_lanes, fill_rows
-    from globalign_tpu.ops.traceback import traceback_moves
-    from globalign_tpu.parallel import mesh as mesh_mod
-
-    scheme = resolve_scheme("ARND", "NDRA", scoring_mat_name="BLOSUM62")
-    A = scheme.alphabet.size
-    assert fill_lanes.sub_bits_for(np.asarray(scheme.costing.values)) > 0, (
-        "BLOSUM62 should qualify for the bitmask substitution mode"
-    )
-    B, m_pad, n_pad = 10, 12, 8
-    rng = np.random.default_rng(11)
-    tok_a = np.zeros((B, m_pad + 1), np.int32)
-    tok_b = np.zeros((B, n_pad + 1), np.int32)
-    tok_a[:, 1:] = rng.integers(0, A - 1, (B, m_pad))
-    tok_b[:, 1:] = rng.integers(0, A - 1, (B, n_pad))
-    m_true = np.full(B, m_pad, np.int32)
-    n_true = np.full(B, n_pad, np.int32)
-
-    real_plan = fill_lanes.lanes_plan
-
-    def small_w_plan(*a, **k):
-        plan = real_plan(*a, **k)
-        return None if plan is None else (min(plan[0], 8), plan[1])
-
-    monkeypatch.setattr(fill_lanes, "lanes_plan", small_w_plan)
-
-    calls = {"final3": 0, "moves": 0}
-    real_final3 = fill_lanes.lanes_general_final3
-    real_moves = fill_lanes.lanes_general_moves
-
-    def spy_final3(*a, **k):
-        calls["final3"] += 1
-        assert k.get("sub_bits", 0) > 0, "bitmask mode must engage"
-        return real_final3(*a, **k)
-
-    def spy_moves(*a, **k):
-        calls["moves"] += 1
-        assert k.get("sub_bits", 0) > 0, "bitmask mode must engage"
-        return real_moves(*a, **k)
-
-    monkeypatch.setattr(fill_lanes, "lanes_general_final3", spy_final3)
-    monkeypatch.setattr(fill_lanes, "lanes_general_moves", spy_moves)
-
-    ref = np.asarray(
-        fill_rows.row_fill_batch(
-            jnp.asarray(tok_a), jnp.asarray(tok_b),
-            jnp.asarray(scheme.costing.values),
-            jnp.int32(scheme.alphabet.gap_id),
-            jnp.int32(scheme.gap_open_cost),
-            jnp.asarray(m_true), jnp.asarray(n_true), want_moves=False,
-        ).final3
-    )
-    f3 = mesh_mod.sharded_fill_costs(
-        cpu_mesh, tok_a, tok_b, scheme.costing.values,
-        scheme.alphabet.gap_id, scheme.gap_open_cost, m_true, n_true,
-        use_pallas=True, interpret=True,
-    )
-    assert calls["final3"] > 0
-    assert (f3 == ref).all()
-
-    f3m, moves = mesh_mod.sharded_fill_moves(
-        cpu_mesh, tok_a, tok_b, scheme.costing.values,
-        scheme.alphabet.gap_id, scheme.gap_open_cost, m_true, n_true,
-        use_pallas=True, interpret=True,
-    )
-    assert calls["moves"] > 0
-    assert (f3m == ref).all()
-    letters = np.array(scheme.alphabet.letters[:-1])
-    for k in range(0, B, 3):
-        s1 = "".join(letters[tok_a[k, 1:]])
-        s2 = "".join(letters[tok_b[k, 1:]])
-        tb = traceback_moves(moves[k], s1, s2, f3m[k], layout="row")
-        assert tb.cost == int(ref[k].min())
-
-
-def test_sharded_bitmask_failure_retries_chain(cpu_mesh, monkeypatch):
-    """A bitmask-kernel rejection on the sharded path must (1) latch
-    only the BITMASK mode for the shape class, (2) retry the select
-    chain IN-CALL, and (3) leave later dispatches of the class on the
-    chain (ADVICE r4: a toolchain without variable-amount vector
-    shifts must not lose the lane path outright)."""
-    import functools
-
-    import jax.numpy as jnp
-
-    from globalign_tpu.config import resolve_scheme
-    from globalign_tpu.ops import fill_lanes, fill_rows
-    from globalign_tpu.parallel import mesh as mesh_mod
-
-    scheme = resolve_scheme("ARND", "NDRA", scoring_mat_name="BLOSUM62")
-    A = scheme.alphabet.size
-    # Distinct shapes from the other sharding tests: same-signature jit
-    # cache hits would skip tracing and starve the spy.
-    B, m_pad, n_pad = 10, 14, 10
-    rng = np.random.default_rng(13)
-    tok_a = np.zeros((B, m_pad + 1), np.int32)
-    tok_b = np.zeros((B, n_pad + 1), np.int32)
-    tok_a[:, 1:] = rng.integers(0, A - 1, (B, m_pad))
-    tok_b[:, 1:] = rng.integers(0, A - 1, (B, n_pad))
-    m_true = np.full(B, m_pad, np.int32)
-    n_true = np.full(B, n_pad, np.int32)
-
-    real_plan = fill_lanes.lanes_plan
-
-    def small_w_plan(*a, **k):
-        plan = real_plan(*a, **k)
-        return None if plan is None else (min(plan[0], 8), plan[1])
-
-    monkeypatch.setattr(fill_lanes, "lanes_plan", small_w_plan)
-    # The latch normally refuses to record failures on CPU (platform
-    # limitation, not kernel defect); pretend we're an accelerator so
-    # the bitmask-vs-chain bookkeeping is exercised for real.
-    monkeypatch.setattr(
-        fill_lanes.jax, "default_backend", lambda: "tpu"
-    )
-    monkeypatch.setattr(fill_lanes, "_bitmask_failed", set())
-    monkeypatch.setattr(fill_lanes, "_general_failed", set())
-
-    calls = []
-    real_final3 = functools.partial(
-        fill_lanes.lanes_general_final3, interpret=True
-    )
-
-    def flaky_final3(*a, **k):
-        calls.append(k.get("sub_bits", 0))
-        if k.get("sub_bits", 0) > 0:
-            raise RuntimeError("synthetic Mosaic bitmask rejection")
-        k.pop("interpret", None)
-        return real_final3(*a, **k)
-
-    monkeypatch.setattr(fill_lanes, "lanes_general_final3", flaky_final3)
-
-    ref = np.asarray(
-        fill_rows.row_fill_batch(
-            jnp.asarray(tok_a), jnp.asarray(tok_b),
-            jnp.asarray(scheme.costing.values),
-            jnp.int32(scheme.alphabet.gap_id),
-            jnp.int32(scheme.gap_open_cost),
-            jnp.asarray(m_true), jnp.asarray(n_true), want_moves=False,
-        ).final3
-    )
-    f3 = mesh_mod.sharded_fill_costs(
-        cpu_mesh, tok_a, tok_b, scheme.costing.values,
-        scheme.alphabet.gap_id, scheme.gap_open_cost, m_true, n_true,
-        use_pallas=True, interpret=True,
-    )
-    # First attempt ran bitmask (>0), the in-call retry ran the chain.
-    assert any(sb > 0 for sb in calls) and calls[-1] == 0
-    assert (f3 == ref).all()
-    assert fill_lanes._bitmask_failed and not fill_lanes._general_failed
-
-    # A later dispatch of the class resolves the chain mode up front
-    # (dispatch_sub_bits consults the bitmask latch) and reuses the
-    # already-compiled chain executable — results stay lane-correct.
-    gkey = next(iter(fill_lanes._bitmask_failed))
-    assert fill_lanes.dispatch_sub_bits(
-        np.asarray(scheme.costing.values), gkey
-    ) == 0
-    calls.clear()
-    f3b = mesh_mod.sharded_fill_costs(
-        cpu_mesh, tok_a, tok_b, scheme.costing.values,
-        scheme.alphabet.gap_id, scheme.gap_open_cost, m_true, n_true,
-        use_pallas=True, interpret=True,
-    )
-    assert all(sb == 0 for sb in calls)  # no bitmask re-attempt
-    assert (f3b == ref).all()
-
-
-def test_sharded_moves_bitmask_failure_retries_chain(cpu_mesh, monkeypatch):
-    """The MOVES twin of the bitmask-retry test: sharded_fill_moves
-    must latch only the bitmask mode and retry the chain in-call, with
-    the unskewed move planes still walking to the local alignments."""
-    import functools
-
-    import jax.numpy as jnp
-
-    from globalign_tpu.config import resolve_scheme
-    from globalign_tpu.ops import fill_lanes, fill_rows
-    from globalign_tpu.ops.traceback import traceback_moves
-    from globalign_tpu.parallel import mesh as mesh_mod
-
-    scheme = resolve_scheme("ARND", "NDRA", scoring_mat_name="BLOSUM62")
-    A = scheme.alphabet.size
-    B, m_pad, n_pad = 10, 16, 12  # distinct shapes: avoid cache hits
-    rng = np.random.default_rng(17)
-    tok_a = np.zeros((B, m_pad + 1), np.int32)
-    tok_b = np.zeros((B, n_pad + 1), np.int32)
-    tok_a[:, 1:] = rng.integers(0, A - 1, (B, m_pad))
-    tok_b[:, 1:] = rng.integers(0, A - 1, (B, n_pad))
-    m_true = np.full(B, m_pad, np.int32)
-    n_true = np.full(B, n_pad, np.int32)
-
-    real_plan = fill_lanes.lanes_plan
-
-    def small_w_plan(*a, **k):
-        plan = real_plan(*a, **k)
-        return None if plan is None else (min(plan[0], 8), plan[1])
-
-    monkeypatch.setattr(fill_lanes, "lanes_plan", small_w_plan)
-    monkeypatch.setattr(
-        fill_lanes.jax, "default_backend", lambda: "tpu"
-    )
-    monkeypatch.setattr(fill_lanes, "_bitmask_failed", set())
-    monkeypatch.setattr(fill_lanes, "_general_failed", set())
-
-    calls = []
-    real_moves = functools.partial(
-        fill_lanes.lanes_general_moves, interpret=True
-    )
-
-    def flaky_moves(*a, **k):
-        calls.append(k.get("sub_bits", 0))
-        if k.get("sub_bits", 0) > 0:
-            raise RuntimeError("synthetic Mosaic bitmask rejection")
-        k.pop("interpret", None)
-        return real_moves(*a, **k)
-
-    monkeypatch.setattr(fill_lanes, "lanes_general_moves", flaky_moves)
-
+    tok_a, tok_b, consts, mt, nt, seqs = _token_batch(name)
     ref = fill_rows.row_fill_batch(
-        jnp.asarray(tok_a), jnp.asarray(tok_b),
-        jnp.asarray(scheme.costing.values),
-        jnp.int32(scheme.alphabet.gap_id),
-        jnp.int32(scheme.gap_open_cost),
-        jnp.asarray(m_true), jnp.asarray(n_true), want_moves=True,
+        jnp.asarray(tok_a), jnp.asarray(tok_b), *(jnp.asarray(c) for c in
+                                                  consts),
+        jnp.asarray(mt), jnp.asarray(nt), want_moves=True,
     )
     ref_f3 = np.asarray(ref.final3)
-    f3, moves = mesh_mod.sharded_fill_moves(
-        cpu_mesh, tok_a, tok_b, scheme.costing.values,
-        scheme.alphabet.gap_id, scheme.gap_open_cost, m_true, n_true,
-        use_pallas=True, interpret=True,
-    )
-    assert any(sb > 0 for sb in calls) and calls[-1] == 0
+    if mode == "costs":
+        f3 = mesh_mod.sharded_fill_costs(cpu_mesh, tok_a, tok_b, *consts,
+                                         mt, nt)
+        assert (f3 == ref_f3).all()
+        return
+    f3, moves = mesh_mod.sharded_fill_moves(cpu_mesh, tok_a, tok_b, *consts,
+                                            mt, nt)
     assert (f3 == ref_f3).all()
-    assert fill_lanes._bitmask_failed and not fill_lanes._general_failed
-    letters = np.array(scheme.alphabet.letters[:-1])
-    ref_moves = np.asarray(ref.moves)
-    for k in range(0, B, 3):
-        s1 = "".join(letters[tok_a[k, 1:]])
-        s2 = "".join(letters[tok_b[k, 1:]])
-        got = traceback_moves(moves[k], s1, s2, f3[k], layout="row")
-        want = traceback_moves(
-            ref_moves[k], s1, s2, ref_f3[k], layout="row"
-        )
-        assert got == want, k
+    assert moves.shape == np.asarray(ref.moves).shape
+    for b, (s1, s2) in enumerate(seqs):
+        assert traceback_moves(moves[b], s1, s2, f3[b], "row") == (
+            traceback_moves(np.asarray(ref.moves[b]), s1, s2, ref_f3[b],
+                            "row")
+        ), b
 
 
-def test_sharded_general_lanes_dispatch(cpu_mesh, monkeypatch):
-    """GENERAL costing matrices dispatch the lane kernel inside the
-    shard_map body too (host-resolved static plan — round-2 left them
-    on the stacked scan kernel).  Stub-driven on the CPU mesh like the
-    uniform-plumbing test: cost AND moves paths must route through
-    lanes_general_* with the host-planned static w."""
+def test_sharded_moves_land_on_every_device(cpu_mesh):
+    """The move planes stay sharded: one batch shard per mesh device."""
     import jax.numpy as jnp
-
-    from globalign_tpu.config import resolve_scheme
-    from globalign_tpu.ops import fill_lanes
-    from globalign_tpu.parallel import mesh as mesh_mod
-
-    scheme = resolve_scheme("ARND", "NDRA", scoring_mat_name="BLOSUM62")
-    A = scheme.alphabet.size
-    B, m_pad, n_pad = 10, 12, 16
-    rng = np.random.default_rng(5)
-    tok_a = np.zeros((B, m_pad + 1), np.int32)
-    tok_b = np.zeros((B, n_pad + 1), np.int32)
-    tok_a[:, 1:] = rng.integers(0, A - 1, (B, m_pad))
-    tok_b[:, 1:] = rng.integers(0, A - 1, (B, n_pad))
-    m_true = np.full(B, m_pad, np.int32)
-    n_true = np.full(B, n_pad, np.int32)
-
-    cost_calls = []
-
-    def stub_final3(ta, tb, cm, gi, go, mt, nt, **k):
-        cost_calls.append(k.get("w"))
-        return jnp.stack([ta[:, 1]] * 3, axis=-1)
-
-    monkeypatch.setattr(fill_lanes, "lanes_general_final3", stub_final3)
-    final3 = mesh_mod.sharded_fill_costs(
-        cpu_mesh, tok_a, tok_b, scheme.costing.values,
-        scheme.alphabet.gap_id, scheme.gap_open_cost, m_true, n_true,
-    )
-    # sharded_fill_costs has no use_pallas override; the CPU platform
-    # declines pallas — drive the jit directly with the host-made plan.
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    plan = fill_lanes.lanes_plan(2, m_pad, n_pad, asel=A)
-    assert plan is not None
-    sharding = NamedSharding(cpu_mesh, P("pairs"))
-    (ta_p, tb_p, mt_p, nt_p), _ = mesh_mod.pad_batch_to_mesh(
-        (tok_a, tok_b, m_true, n_true), B, cpu_mesh
+    from globalign_jax.parallel import mesh as mesh_mod
+
+    tok_a, tok_b, consts, mt, nt, _ = _token_batch("dna_default", B=16)
+    sh = NamedSharding(cpu_mesh, P(mesh_mod.BATCH_AXIS))
+    final3, moves = mesh_mod._sharded_moves_jit(
+        cpu_mesh, mesh_mod._put(tok_a, sh), mesh_mod._put(tok_b, sh),
+        *(jnp.asarray(c) for c in consts), mesh_mod._put(mt, sh),
+        mesh_mod._put(nt, sh),
     )
-    f3, _cells = mesh_mod._sharded_costs_jit(
-        cpu_mesh,
-        mesh_mod._put(ta_p, sharding),
-        mesh_mod._put(tb_p, sharding),
-        jnp.asarray(scheme.costing.values),
-        jnp.asarray(scheme.alphabet.gap_id),
-        jnp.asarray(scheme.gap_open_cost),
-        mesh_mod._put(mt_p, sharding),
-        mesh_mod._put(nt_p, sharding),
-        use_pallas=True,
-        general_plan=plan,
+    devs = {s.device for s in moves.addressable_shards}
+    assert len(devs) == cpu_mesh.devices.size
+    assert all(s.data.shape[0] == 2 for s in moves.addressable_shards)
+    assert final3.shape == (16, 3)
+
+
+def test_sharded_traceback_blosum_matches_unsharded(cpu_mesh):
+    rng = np.random.default_rng(8)
+    prot = list("ARNDCQEGHILKMFPSTWYV")
+    pairs = [
+        ("".join(rng.choice(prot, int(rng.integers(5, 40)))),
+         "".join(rng.choice(prot, int(rng.integers(5, 40)))))
+        for _ in range(11)
+    ]
+    kw = dict(scoring_mat_name="BLOSUM62", with_traceback=True)
+    assert align_pairs(pairs, mesh=cpu_mesh, **kw) == align_pairs(pairs, **kw)
+
+
+def test_graft_entry_forward_step():
+    """The jittable entry step returns the oracle cost of every pair."""
+    import jax.numpy as jnp
+
+    import __graft_entry__ as ge
+    from globalign_jax.ops import fill_scan
+
+    fn, args = ge.entry()
+    got = np.asarray(jax.jit(fn)(*args))
+    costing = ge._simple_costing()
+    ref = fill_scan.wavefront_fill_batch(
+        *args[:2], jnp.asarray(costing.values),
+        jnp.int32(costing.alphabet.gap_id), jnp.int32(4), *args[2:],
     )
-    assert cost_calls and all(wc == plan[0] for wc in cost_calls)
-    f3 = np.asarray(f3)[:B]
-    assert (f3 == tok_a[:, 1][:, None]).all()
+    assert (got == np.asarray(ref.final3).min(axis=-1)).all()
 
-    # Moves path: general plan routes lanes_general_moves per tile.
-    mv_calls = []
-    planm = fill_lanes.lanes_plan(2, m_pad, n_pad, moves=True, asel=A)
-    assert planm is not None
-    wm, tile_m = planm
 
-    def stub_moves(ta, tb, cm, gi, go, mt, nt, **k):
-        mv_calls.append(k.get("w"))
-        vals = jnp.stack([ta[:, 1]] * 3, axis=-1)
-        mv = jnp.broadcast_to(ta[0, 1].astype(jnp.uint8), (8, 8, 128))
-        return vals, mv
+@pytest.mark.parametrize("n_devices", [2, 4, 8])
+def test_dryrun_multichip(n_devices, capsys):
+    import __graft_entry__ as ge
 
-    def stub_unskew(mv, Bq, npad, wq, mpad):
-        assert (Bq, npad, wq, mpad) == (tile_m, n_pad, wm, m_pad)
-        return np.full(
-            (Bq, mpad + 1, npad + 1), np.asarray(mv)[0, 0, 0], np.uint8
-        )
-
-    monkeypatch.setattr(fill_lanes, "lanes_general_moves", stub_moves)
-    monkeypatch.setattr(fill_lanes, "lanes_moves_to_row", stub_unskew)
-    final3m, moves = mesh_mod.sharded_fill_moves(
-        cpu_mesh, tok_a, tok_b, scheme.costing.values,
-        scheme.alphabet.gap_id, scheme.gap_open_cost, m_true, n_true,
-        use_pallas=True,
-    )
-    assert mv_calls and all(wc == wm for wc in mv_calls)
-    assert (np.asarray(final3m)[:B] == tok_a[:, 1][:, None]).all()
-    assert moves.shape == (B, m_pad + 1, n_pad + 1)
+    ge.dryrun_multichip(n_devices)
+    assert f"{n_devices} devices" in capsys.readouterr().out

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from globalign_tpu import (
+from globalign_jax import (
     costing_mat_to_scoring_mat,
     final_cost_to_score,
     final_score_to_cost,
     load_bundled_matrix,
     scoring_mat_to_costing_mat,
 )
-from globalign_tpu.ops.transforms import split_deltas
+from globalign_jax.ops.transforms import split_deltas
 
 
 def test_split_deltas():

@@ -2,7 +2,7 @@
 
 import pytest
 
-from globalign_tpu import (
+from globalign_jax import (
     SimpleCostingSettings,
     SimpleScoringSettings,
     find_global_alignment,
